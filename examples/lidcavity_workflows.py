@@ -3,7 +3,7 @@
 Mirrors the reference's lidcavity script collection
 (ref: src/examples/lidcavity/{compute_steady_state_increasing_Re,
 batch_run_lidcavity, eig_compute_lidcavity}.py). The batch run uses the
-TPU-native vmapped rollout instead of a Python loop over cases.
+vmapped device rollout instead of a Python loop over cases.
 """
 
 import logging

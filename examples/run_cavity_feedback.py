@@ -15,8 +15,8 @@ ref: compute_eigenvalues.py:53-57) drives upward.
 Usage:
     python examples/run_cavity_feedback.py [--steps 4000] [--open-loop]
 
-(4000 steps = T 1.6: plant-validated on TPU — open grows 17.15x, the
-closed loop ends at 0.637x the open energy.)
+(4000 steps = T 1.6: open grows 17.15x, the closed loop ends at 0.637x
+the open energy — tests/integration/test_stock_parity.py.)
 """
 
 import argparse

@@ -8,7 +8,7 @@ operators-export + Matlab + lticontrol: here in one script —
    the leading eigenmodes),
 3. LQG synthesis on the reduced model (utils/lticontrol),
 4. evaluate candidate controllers with BATCHED closed-loop rollouts (vmap) —
-   the TPU-native replacement of the reference's MPI master-worker
+   the single-program replacement of the reference's MPI master-worker
    optimization loop (ref: src/utils/optim.py:71-107).
 """
 

@@ -1,4 +1,4 @@
-"""flowcontrol_tpu — TPU-native flow simulation and feedback control.
+"""flowcontrol_tpu — flow simulation and feedback control in JAX.
 
 A from-scratch JAX/XLA framework with the capability surface of
 williamjussiau/FlowControl (FEniCS/PETSc/MPI based): incompressible
@@ -7,11 +7,14 @@ FEM on unstructured triangle meshes, BDF1/BDF2/Crank-Nicolson stepping,
 Newton/Picard base-flow solvers, actuators/sensors/LTI controllers,
 linearized operator export, eigenvalue/frequency-response analysis,
 checkpoint/restart, controller synthesis (Youla/LQG/H∞), and batched
-vmapped closed-loop rollouts on TPU.
+vmapped closed-loop rollouts on the GPU.
 
 Public API mirrors the reference's ``flowcontrol`` package
 (ref: src/flowcontrol/__init__.py:49-85).
 """
+
+# numerical configuration first: x64, matmul precision, compile cache
+from flowcontrol_tpu import config as _config  # noqa: F401
 
 from flowcontrol_tpu.core.actuator import (
     ACTUATOR_TYPE,

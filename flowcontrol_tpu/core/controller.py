@@ -6,7 +6,7 @@ state ``x``, cached ZOH discretization keyed on dt, MIMO ``step(y, dt)``,
 ``reset()``, arithmetic preserving type with state concatenation, ``inv()``,
 and ``.mat`` file I/O.
 
-TPU-native extra: ``discrete(dt)`` exports the (Ad, Bd, Cd, Dd) tuple as
+Device-side extra: ``discrete(dt)`` exports the (Ad, Bd, Cd, Dd) tuple as
 device arrays so the controller update fuses into the jitted closed-loop
 step function (the reference steps the controller in Python between CFD
 steps — ref: run_cylinder_example.py:83-86; here the whole loop is one XLA

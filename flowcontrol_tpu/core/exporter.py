@@ -14,14 +14,14 @@ checkpoints_written, restart_order, files{U, Uprev, P}
 
 from __future__ import annotations
 
+import csv
 import json
 import logging
 
 import numpy as np
-import pandas as pd
 
 from flowcontrol_tpu.core.flowfield import FlowFieldCollection, SimPaths
-from flowcontrol_tpu.mesh.io import FieldCheckpointFile
+from flowcontrol_tpu.mesh.io import FieldCheckpointFile, require_h5py
 
 logger = logging.getLogger(__name__)
 
@@ -91,9 +91,7 @@ class FlowExporter:
                 f = self._file(p)
                 f.close()
                 del self._files[str(p)]
-                import h5py
-
-                h5py.File(f.path, "w").close()  # truncate
+                require_h5py().File(f.path, "w").close()  # truncate
         self._checkpoints_written += 1
         self._file(self.paths.U_restart).write("U", usave, time)
         self._file(self.paths.Uprev_restart).write("U_n", usave_n, time)
@@ -121,8 +119,19 @@ class FlowExporter:
         row.update(zip(self._y_cols, (float(v) for v in y_meas)))
         self._records.append(row)
 
-    def to_dataframe(self) -> pd.DataFrame:
-        return pd.DataFrame(self._records)
+    def columns(self) -> list[str]:
+        """CSV columns: every record key, in order of first appearance."""
+        cols: dict[str, None] = {}
+        for row in self._records:
+            cols.update(dict.fromkeys(row))
+        return list(cols)
+
+    def to_dataframe(self):
+        """The timeseries as a pandas DataFrame (pandas is optional and
+        imported only here)."""
+        import pandas as pd
+
+        return pd.DataFrame(self._records, columns=self.columns())
 
     def write_metadata(self, restart_order=2) -> None:
         meta = {
@@ -159,7 +168,10 @@ class FlowExporter:
 
     def write_timeseries(self) -> None:
         self.paths.timeseries.parent.mkdir(parents=True, exist_ok=True)
-        self.to_dataframe().to_csv(self.paths.timeseries, sep=",", index=False)
+        with open(self.paths.timeseries, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=self.columns(), restval="")
+            w.writeheader()
+            w.writerows(self._records)
 
     def log_progress(self, iter, num_steps, t, t_end, runtime) -> None:
         logger.info(

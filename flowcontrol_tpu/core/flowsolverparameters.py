@@ -5,7 +5,7 @@ API-parity port of the reference's 8 Param* dataclasses
 
 - ``ParamMesh`` may carry an in-memory ``Mesh2D`` instead of (or in addition
   to) an XDMF path — mesh generation is a first-class host-side step here.
-- ``ParamSolver`` gains TPU-solver knobs: ``solver_backend``
+- ``ParamSolver`` gains device-solver knobs: ``solver_backend``
   ('auto' | 'host_lu' | 'dense_lu' | 'gmres') and ``precision``
   ('f32' | 'f64') controlling the device hot loop.
 """
@@ -106,19 +106,19 @@ class ParamSave(ParamFlowSolver):
 @dataclass
 class ParamSolver(ParamFlowSolver):
     """Solver/equation options (ref: flowsolverparameters.py:169-192)
-    plus TPU-backend knobs."""
+    plus device-backend knobs."""
 
     throw_error: bool = True
     shift: float = 0.0
     is_eq_nonlinear: bool = True
     time_scheme: str = "bdf"  # 'bdf' (BDF1→BDF2 ramp) or 'cn'
-    # TPU-native additions:
+    # device-path additions:
     solver_backend: str = "auto"  # 'auto' | 'host_lu' | 'dense_lu' | 'gmres'
     precision: str = "auto"  # 'auto' | 'f32' | 'f64'
     pin_pressure: bool | None = None  # None = auto-detect enclosed flows
     # extra Stepper keyword overrides — any core.stepper.Stepper dataclass
     # field, e.g. refine_steps, dense_operators, banded_operators,
-    # windowed_nl, hot_order, trisolve, block_lu_bs, gmres_iters, and the
+    # windowed_nl, hot_order, block_lu_bs, gmres_iters, and the
     # production-gating multifrontal/NL knobs promoted from env vars:
     #   mf_leaf_max (int, default 512; env FC_MF_LEAF_MAX)
     #   mf_trim (bool, default True; env FC_MF_TRIM)

@@ -1,6 +1,6 @@
 """Navier-Stokes operator bundles per time scheme.
 
-TPU-native equivalent of the reference's UFL variational forms
+Array equivalent of the reference's UFL variational forms
 (ref: src/flowcontrol/nsforms.py). Instead of symbolic forms that a JIT
 compiler turns into assembly kernels, NSForms builds the per-scheme element
 tensors directly:
@@ -139,7 +139,7 @@ class NSForms:
         raise ValueError(f"order must be 1, 2, or 'cn', got {order}")
 
     # ── Reference-named form surface (ref: nsforms.py:62-187) ────────────────
-    # The reference returns UFL forms; the TPU-native equivalents return the
+    # The reference returns UFL forms; the equivalents here return the
     # assembled element tensors / residual vectors those forms produce.
 
     def transient(self, order, u0_nodes: np.ndarray):

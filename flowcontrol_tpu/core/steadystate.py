@@ -6,7 +6,7 @@ solves and dolfin-default tolerances (abs 1e-10, rel 1e-9), and Picard
 fixed-point iteration with relative-change convergence.
 
 Runs host-side in float64 (one-time setup work — the appropriate tool, as
-the factorization-based inner solve has no TPU equivalent at f64). The
+the factorization-based inner solve is a host sparse LU). The
 resulting base flow feeds the device-resident linearized operators.
 """
 

@@ -1,15 +1,15 @@
 """Element-tensor assembly and matrix-free operator application.
 
-The TPU-native replacement for dolfin's SystemAssembler + PETSc matrices
+The device-side replacement for dolfin's SystemAssembler + PETSc matrices
 (ref: src/flowcontrol/flowsolver.py:665-701). Strategy:
 
 - Per-cell dense element tensors (15x15 mixed Taylor-Hood) are built ONCE per
   operator as batched einsums over the shape-function tables — this is the
   analogue of assembling the global sparse matrix, but the result stays in
-  the shape XLA loves: a dense ``(nc, 15, 15)`` array. Builders run in
+  the shape XLA handles best: a dense ``(nc, 15, 15)`` array. Builders run in
   float64 numpy on the host (setup time, exactness); results are cast to the
   device dtype when shipped into jitted step functions.
-- Operator application is gather → batched 15x15 matvec (MXU) → segment-sum
+- Operator application is gather → batched 15x15 matvec → segment-sum
   scatter, in JAX. No global sparse matrix is needed on the hot path.
 - A global scipy CSR matrix can still be materialized host-side for direct
   factorization, operator export, and eigensolves.
@@ -24,12 +24,12 @@ import numpy as np
 from flowcontrol_tpu.fem import element as el
 from flowcontrol_tpu.mesh.dofmap import TaylorHoodSpace
 
-# Device einsums that touch solution values run at HIGH matmul precision:
-# at DEFAULT the TPU MXU truncates f32 operands to bf16 (~2^-9 relative
-# per contraction) — measured rel_err 4.5e-3 on N(u) at stock 56k
-# (tools/nl_variant_ab.py). HIGH (bf16x3) restores ~1e-5-class accuracy
-# for a modest cost on these small contractions; CPU ignores the flag.
-_PREC = jax.lax.Precision.HIGH
+# Device einsums that touch solution values run at HIGHEST precision: on
+# the H100 an f32 dot at DEFAULT or HIGH may run in TF32 (10 mantissa
+# bits), which would round every element apply and N(u) contraction to
+# ~3 digits. These contractions are small, so full f32 costs little;
+# CPU ignores the flag.
+_PREC = jax.lax.Precision.HIGHEST
 
 # Velocity local dof (node a, comp c) -> mixed local index 2a + c.
 _VEL_IDX = np.arange(12).reshape(6, 2)  # [a, c] -> local mixed index
@@ -225,9 +225,8 @@ def build_gather_table(dofs_flat: np.ndarray, n_dofs: int) -> np.ndarray:
     contribution) a destination dof. Returns ``table (n_dofs, kmax)`` of
     source indices, padded with ``m`` (a zero slot appended by the apply).
 
-    This inverts the scatter into a pure GATHER + small-axis sum — the
-    TPU-friendly assembly layout (scatter-adds inside lax.scan are
-    pathologically slow to compile on the TPU toolchain; gathers are fast).
+    This inverts the scatter into a pure GATHER + small-axis sum (no
+    scatter-add inside lax.scan).
     Uses the native single-pass kernel when available.
     """
     try:
@@ -366,7 +365,7 @@ def steady_residual_element(geom_cell, up_cell, inv_re, f_cell=None):
 
 
 def steady_residual(geom: CellGeometry, space: TaylorHoodSpace, up, inv_re, f_nodes=None):
-    """Global steady residual vector (n_dofs,). Runs under JAX (cpu or tpu)."""
+    """Global steady residual vector (n_dofs,). Runs under JAX (cpu or gpu)."""
     cd = space.cell_dofs
     up_cells = up[cd]  # (nc, 15)
     if f_nodes is not None:

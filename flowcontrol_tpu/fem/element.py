@@ -1,10 +1,9 @@
 """Taylor-Hood reference-element tables and per-cell element tensors.
 
-TPU-first FEM core. Everything the reference delegates to UFL + FFC-generated
+Array-first FEM core. Everything the reference delegates to UFL + FFC-generated
 C++ kernels (ref: src/flowcontrol/nsforms.py — the variational forms) is
 expressed here as small dense einsums over precomputed shape-function tables,
-batched over all cells with ``vmap``/broadcasting so XLA maps them onto the
-MXU.
+batched over all cells with ``vmap``/broadcasting.
 
 Conventions
 -----------

@@ -8,7 +8,8 @@ Interoperable with the reference's data formats:
   with an integer counter per checkpoint (ref: src/utils/io.py:21-50
   write_xdmf/read_xdmf).
 
-Pure host-side (h5py + xml) — I/O is not a hot path.
+Pure host-side (h5py + xml) — I/O is not a hot path. h5py is optional
+(the ``io`` extra): only these readers and writers need it.
 """
 
 from __future__ import annotations
@@ -21,9 +22,22 @@ import numpy as np
 from flowcontrol_tpu.mesh.mesh import Mesh2D
 
 
+def require_h5py():
+    """Import h5py, or say which feature needs it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "h5py is needed for XDMF/HDF5 mesh, checkpoint and snapshot "
+            "I/O (pip install 'flowcontrol-tpu[io]'); stepping without "
+            "checkpoints (save_every=0) does not need it"
+        ) from e
+    return h5py
+
+
 def read_xdmf_mesh(path) -> Mesh2D:
     """Read a triangle mesh from an XDMF file referencing an HDF5 sidecar."""
-    import h5py
+    h5py = require_h5py()
 
     path = Path(path)
     tree = ET.parse(path)
@@ -45,7 +59,7 @@ def read_xdmf_mesh(path) -> Mesh2D:
 
 
 def write_xdmf_mesh(path, mesh: Mesh2D) -> None:
-    import h5py
+    h5py = require_h5py()
 
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -77,7 +91,7 @@ class FieldCheckpointFile:
     """
 
     def __init__(self, path, mode="a"):
-        import h5py
+        h5py = require_h5py()
 
         self.path = Path(path if str(path).endswith(".h5") else str(path) + ".h5")
         self.path.parent.mkdir(parents=True, exist_ok=True)
@@ -138,7 +152,7 @@ def write_xdmf_timeseries_index(h5_path, mesh: Mesh2D, name: str, out_path=None)
 
     Returns the path of the written ``.xdmf`` file.
     """
-    import h5py
+    h5py = require_h5py()
 
     h5_path = Path(h5_path)
     out_path = Path(out_path) if out_path else h5_path.with_suffix(".xdmf")

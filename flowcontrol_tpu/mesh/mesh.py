@@ -1,8 +1,8 @@
 """Unstructured 2D triangle mesh as flat numpy arrays.
 
-TPU-first design: the mesh is pure data — vertex coordinates, cell
+Array-first design: the mesh is pure data — vertex coordinates, cell
 connectivity, and derived topology (edges, boundary facets) as flat integer
-arrays that feed the JAX/Pallas assembly kernels directly. There is no mesh
+arrays that feed the JAX assembly kernels directly. There is no mesh
 object graph, no iterators, no callbacks: everything downstream consumes
 arrays.
 

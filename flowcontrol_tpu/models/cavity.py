@@ -26,22 +26,13 @@ from flowcontrol_tpu.core.sensor import (
 
 logger = logging.getLogger(__name__)
 
-_MESH_CACHE = Path(__file__).parent / "_meshes"
-
 
 def default_cavity_mesh(**kwargs):
+    """The generated cavity mesh (deterministic, and well under a second
+    even at 56k dofs, so nothing is cached)."""
     from flowcontrol_tpu.mesh.generation import cavity_mesh
-    from flowcontrol_tpu.mesh.io import read_xdmf_mesh, write_xdmf_mesh
-    import hashlib
 
-    tag = hashlib.md5(repr(sorted(kwargs.items())).encode()).hexdigest()[:10]
-    path = _MESH_CACHE / f"cavity_{tag}.xdmf"
-    if path.exists():
-        return read_xdmf_mesh(path)
-    mesh = cavity_mesh(**kwargs)
-    _MESH_CACHE.mkdir(exist_ok=True)
-    write_xdmf_mesh(path, mesh)
-    return mesh
+    return cavity_mesh(**kwargs)
 
 
 class CavityFlowSolver(FlowSolver):

@@ -24,24 +24,13 @@ from flowcontrol_tpu.fem.facets import boundary_force_rows
 
 logger = logging.getLogger(__name__)
 
-_MESH_CACHE = Path(__file__).parent / "_meshes"
-
 
 def default_cylinder_mesh(**kwargs):
-    """Generate (and disk-cache) the default cylinder mesh."""
+    """The generated cylinder mesh (deterministic, and well under a second
+    even at 56k dofs, so nothing is cached)."""
     from flowcontrol_tpu.mesh.generation import cylinder_mesh
-    from flowcontrol_tpu.mesh.io import read_xdmf_mesh, write_xdmf_mesh
 
-    import hashlib
-
-    tag = hashlib.md5(repr(sorted(kwargs.items())).encode()).hexdigest()[:10]
-    path = _MESH_CACHE / f"cylinder_{tag}.xdmf"
-    if path.exists():
-        return read_xdmf_mesh(path)
-    mesh = cylinder_mesh(**kwargs)
-    _MESH_CACHE.mkdir(exist_ok=True)
-    write_xdmf_mesh(path, mesh)
-    return mesh
+    return cylinder_mesh(**kwargs)
 
 
 class CylinderFlowSolver(FlowSolver):

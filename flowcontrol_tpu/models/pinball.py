@@ -28,22 +28,13 @@ from flowcontrol_tpu.fem.facets import boundary_force_rows
 
 logger = logging.getLogger(__name__)
 
-_MESH_CACHE = Path(__file__).parent / "_meshes"
-
 
 def default_pinball_mesh(**kwargs):
+    """The generated pinball mesh (deterministic, and well under a second
+    even at 56k dofs, so nothing is cached)."""
     from flowcontrol_tpu.mesh.generation import pinball_mesh
-    from flowcontrol_tpu.mesh.io import read_xdmf_mesh, write_xdmf_mesh
-    import hashlib
 
-    tag = hashlib.md5(repr(sorted(kwargs.items())).encode()).hexdigest()[:10]
-    path = _MESH_CACHE / f"pinball_{tag}.xdmf"
-    if path.exists():
-        return read_xdmf_mesh(path)
-    mesh = pinball_mesh(**kwargs)
-    _MESH_CACHE.mkdir(exist_ok=True)
-    write_xdmf_mesh(path, mesh)
-    return mesh
+    return pinball_mesh(**kwargs)
 
 
 class PinballFlowSolver(FlowSolver):

@@ -1,6 +1,6 @@
 /* fastmesh — native host-side mesh/runtime kernels.
  *
- * The TPU-native counterpart of the runtime work the reference delegates to
+ * The native counterpart of the runtime work the reference delegates to
  * dolfin's C++ core (mesh queries, dof-map construction): point location via
  * a uniform background grid, and gather-table (scatter-transpose)
  * construction for the ELL assembly layout. Called from Python through

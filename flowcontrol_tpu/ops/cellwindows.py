@@ -5,9 +5,8 @@ The hot step's one remaining u-dependent element pass is N(u) = ∫((u·∇)u)·
 gather u at each cell's 6 velocity nodes, per-cell quadrature einsums,
 scatter-add 12 values per cell (fem/assembly.nonlinear_convection_gather —
 the reference's per-step RHS reassembly, ref: src/flowcontrol/
-flowsolver.py:739-771). The global gather + gather-table scatter are the
-measured cost (~2-3 ms/step at 56k dofs on v5e); the quadrature flops are
-trivial.
+flowsolver.py:739-771). The global gather + gather-table scatter move
+far more bytes than the quadrature needs flops.
 
 Velocity nodes are first RCM-reordered on their cell-sharing graph (the
 generated meshes are natively coherent, but the reference's stock O1 mesh
@@ -22,10 +21,10 @@ static node window. The apply becomes
 with two in-window pick/scatter variants:
 
 - ``onehot``: build the (768, W) one-hot mask on the fly from an
-  iota==index compare and contract with a matmul — the standard TPU
-  embedding trick; zero data-dependent addressing anywhere.
+  iota==index compare and contract with a matmul — zero data-dependent
+  addressing anywhere.
 - ``take``: jnp.take_along_axis / at[].add inside the (W, 2) window —
-  still dynamic addressing but over a VMEM-sized operand.
+  dynamic addressing over a small operand.
 
 Builds whose window width exceeds ``max_width`` return None so callers
 fall back to the gather-table path.
@@ -44,13 +43,12 @@ logger = logging.getLogger(__name__)
 _RC = 128  # cell-block height
 _RN = 128  # node-window row granularity
 
-# All einsums in the windowed pass run at HIGH matmul precision: at
-# DEFAULT the MXU truncates f32 operands to bf16 (~2^-9 relative), which
-# an on-chip A/B (tools/nl_variant_ab.py, stock O1 56k) measured as
-# rel_err 5.0e-3 on N(u) — visibly bending the stock trajectory. HIGH
-# (bf16x3) restores 3.1e-5 for 0.86 -> 1.02 ms; HIGHEST reaches 1.1e-7
-# at 1.20 ms. HIGH is the production point.
-_PREC = lax.Precision.HIGH
+# All einsums in the windowed pass run at HIGHEST precision. The one-hot
+# contractions are exact selections and sums only in full f32: on the H100
+# an f32 dot at DEFAULT or HIGH may run in TF32 (10 mantissa bits), which
+# turns each pick into a ~3-digit rounding of the value it selects. The
+# quadrature einsums touch the same values and get the same pin.
+_PREC = lax.Precision.HIGHEST
 
 
 def node_rcm(cell_vel_nodes: np.ndarray, n_vnodes: int) -> np.ndarray:
@@ -89,8 +87,7 @@ def build_cell_windows(cell_vel_nodes: np.ndarray, n_vnodes: int,
     ``split_layout=True`` = the caller's dof vector is in the stepper's
     hot order ([all u-dofs, all v-dofs] in ``node_order``, pressure after
     2*n_vnodes): the apply then reads/writes u_nodes by reshape/transpose
-    with ZERO element permutes (each 1-D permute costs ~0.4 ms at 56k
-    dofs on v5e — half the windowed-N(u) budget).
+    with ZERO element permutes (each 1-D permute is a full gather pass).
     """
     cvn_raw = np.asarray(cell_vel_nodes)
     nc, n_loc = cvn_raw.shape
@@ -146,8 +143,8 @@ def build_cell_windows(cell_vel_nodes: np.ndarray, n_vnodes: int,
     }
     # Chunk the one-hot contraction when the full (nb, RC*n_loc, w) mask
     # would be large: XLA is free to materialize it (observed at the 235k
-    # cavity: a vectorized f32[8,406,768,1536] = 14.3 GB AllocateBuffer in
-    # a non-scan compile — an HBM OOM), so above the budget the block axis
+    # cavity: a vectorized f32[8,406,768,1536] = 14.3 GB allocation in
+    # a non-scan compile — a device OOM), so above the budget the block axis
     # is processed in lax.map groups sized to keep any materialization
     # bounded. 0 = unchunked (the 56k mask is ~0.3 GB and always fuses).
     if onehot_budget_mb is None:  # env override of the config-surface knob
@@ -192,6 +189,18 @@ def _window_rows(tree, static, u_nodes):
     return uwin.reshape(batch + (tree["win"].shape[0], w, 2))
 
 
+def onehot_mask(rel_b, w: int, dtype):
+    """(g, m) in-window indices -> (g, m, w) one-hot selection mask."""
+    return (rel_b[:, :, None]
+            == jnp.arange(w, dtype=jnp.int32)[None, None, :]).astype(dtype)
+
+
+def onehot_pick(oh, uwin_b):
+    """Select each cell's node values from its block window: an exact
+    selection, so it must run at full f32 (see _PREC)."""
+    return jnp.einsum("bmw,...bwd->...bmd", oh, uwin_b, precision=_PREC)
+
+
 def nonlinear_convection_windowed(tree, static, u_mixed, n_dofs: int):
     """N(u) through the window blocks. Supports leading batch dims."""
     n_vnodes, n_loc, w = static["n_vnodes"], static["n_loc"], static["w"]
@@ -216,9 +225,8 @@ def nonlinear_convection_windowed(tree, static, u_mixed, n_dofs: int):
         cell blocks; ``*_b`` leaves carry a leading block axis of the
         group's size (uwin_b: batch + (g, w, 2))."""
         g = rel_b.shape[0]
-        oh = (rel_b[:, :, None]
-              == jnp.arange(w, dtype=jnp.int32)[None, None, :]).astype(dt)
-        u_e = jnp.einsum("bmw,...bwd->...bmd", oh, uwin_b, precision=_PREC)
+        oh = onehot_mask(rel_b, w, dt)
+        u_e = onehot_pick(oh, uwin_b)
         u_e = u_e.reshape(batch + (g * _RC, n_loc, 2))
         # per-cell quadrature (same math as
         # fem.assembly._nonlinear_contributions, on the window-ordered

@@ -4,8 +4,8 @@ This is the memory-scaling counterpart of ``parallel.sharding`` (which
 shards element tensors but replicates dof vectors). Here the DOF vector
 itself is sharded: each device owns a contiguous block of spatially-ordered
 dofs, holds only the element tensors of cells assigned to it, and fetches
-the halo it needs from its two neighbors with ``lax.ppermute`` over ICI —
-the TPU-native analogue of dolfin/PETSc's ghost-dof exchange
+the halo it needs from its two neighbors with ``lax.ppermute`` —
+the device-mesh analogue of dolfin/PETSc's ghost-dof exchange
 (ref: src/flowcontrol/flowsolver.py:236-238, src/utils/mpi.py; SURVEY §5.7-8).
 
 Construction (host, one-time):
@@ -20,7 +20,7 @@ Construction (host, one-time):
    gather table for the local scatter.
 
 Apply (device, per matvec): 2 ppermutes to fetch neighbor shards, local
-gather → per-element MXU matvec → window scatter, 2 ppermutes to return
+gather → per-element matvec → window scatter, 2 ppermutes to return
 halo contributions. Communication is O(n_loc) per device, NOT O(n): both
 memory and bandwidth scale down with device count.
 """

@@ -2,7 +2,7 @@
 ``space`` device-mesh axis.
 
 This turns the nested-dissection direct solver (solvers/multifrontal.py)
-into a genuinely distributed execution mode — the TPU-native analogue of
+into a genuinely distributed execution mode — the device-mesh analogue of
 the reference's MPI domain decomposition, where dolfin partitions the mesh
 across ranks and MUMPS factors/solves distributed
 (ref: src/flowcontrol/flowsolver.py:236-238, SURVEY §2.5-1). Each device
@@ -68,7 +68,7 @@ class ShardedMultifrontal:
             raise ValueError(
                 "ShardedMultifrontal requires the canonical stack layout — "
                 "build the MultifrontalLU with layout='ij' (FC_MF_LAYOUT "
-                "is a single-chip A/B knob only)"
+                "is a single-device A/B knob only)"
             )
         self.mesh = mesh
         self.axis = axis

@@ -1,13 +1,13 @@
 """SPMD element-sharded operators over a jax.sharding.Mesh.
 
-TPU-native replacement for the reference's MPI domain decomposition
+Device-mesh replacement for the reference's MPI domain decomposition
 (ref: SURVEY §2.5-1; dolfin partitions the mesh across ranks at read time,
 flowsolver.py:236-238, and every assembly/solve is an MPI collective).
 
 Strategy ("sharded elements, replicated dofs"): the per-element tensors and
 connectivity are sharded across devices along the cell axis ('space'); the
 dof vector is replicated over 'space'. Each device computes its partial
-scatter-add and a single ``psum`` over ICI produces the replicated result —
+scatter-add and a single ``psum`` produces the replicated result —
 the exact analogue of dolfin's ghost-dof accumulation, but expressed as one
 XLA collective. An optional 'batch' mesh axis shards rollout batches
 (data-parallel controller synthesis); dof vectors are then sharded over
@@ -69,7 +69,7 @@ def sharded_apply_builder(
 ):
     """Build y = A x with element tensors sharded across the device mesh.
 
-    Per-shard gather-table assembly + one psum over ICI."""
+    Per-shard gather-table assembly + one psum."""
     from flowcontrol_tpu.fem.assembly import gather_assemble
 
     n_dev = mesh.shape[axis]
@@ -109,7 +109,7 @@ def sharded_nonlinear_builder(
     v | p] with RCM-renumbered nodes — core/stepper.py hot_order) instead
     of the mesh's interleaved [u0,v0,u1,v1,...]; the caller passes
     ``cell_vel_nodes`` and ``vel_dofs`` already renumbered into that
-    order, so distribution composes with the fastest single-chip layout.
+    order, so distribution composes with the fastest single-device layout.
     """
     from flowcontrol_tpu.fem.assembly import gather_assemble
 
@@ -175,7 +175,7 @@ def shard_stepper(stepper, mesh: Mesh, axis: str = "space",
     # live in hot order, so the sharded appliers just renumber their
     # build-time connectivity through the same permutation — the per-step
     # dataflow is unchanged and ZERO extra permutes are paid (round-3
-    # verdict weak #4: the fastest single-chip layout is now the one that
+    # verdict weak #4: the fastest single-device layout is now the one that
     # shards).
     hot = getattr(stepper, "_hot_src", None) is not None
     cell_dofs = (

@@ -1,15 +1,14 @@
 """Direct linear solvers: host sparse LU and on-device dense LU.
 
 The reference funnels every linear solve through MUMPS
-(ref: src/flowcontrol/flowsolver.py:812-814). TPUs have no sparse direct
-factorization, so we provide:
+(ref: src/flowcontrol/flowsolver.py:812-814). Here:
 
 - ``HostSparseLU``: scipy splu (f64) — setup-time solves (steady state,
   operator work) where a one-time CPU factorization is the right tool.
 - ``DeviceDenseLU``: dense LU on the accelerator via jax lu_factor. For
-  small/medium meshes the factors live in HBM and the per-step back-solve is
+  small/medium meshes the factors live in device memory and the per-step back-solve is
   two triangular solves; with batched RHS (vmapped rollouts) the factor read
-  is amortized across the batch — the dense-matmul regime TPUs are built for.
+  is amortized across the batch — the dense-matmul regime.
 
 Both present ``solve(b)`` with leading batch dims supported.
 """

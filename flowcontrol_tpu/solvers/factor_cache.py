@@ -1,16 +1,16 @@
 """Disk cache for expensive one-time factorization byproducts.
 
 The reference pays its setup cost (MUMPS symbolic+numeric factorization,
-ref: src/flowcontrol/flowsolver.py:665-701) on every run. On TPU the
-analogous cost is split between host-side Schur-complement assembly
-(``solvers/substructure.py``) and on-device factor compilation; the XLA
+ref: src/flowcontrol/flowsolver.py:665-701) on every run. Here the
+analogous cost is split between host-side factorization (the multifrontal
+fronts, ``solvers/substructure.py``) and program compilation; the XLA
 pieces are covered by the persistent compilation cache (``config.py``),
 and this module covers the host pieces. Entries are keyed by a content
 hash of the BC-eliminated matrix plus the factorization parameters, so a
 restarted campaign on the same mesh/dt warm-starts in seconds.
 
 Cache location: ``FLOWCONTROL_TPU_FACTOR_CACHE`` (``off`` disables),
-default ``~/.cache/flowcontrol_tpu/factors``. Total size is capped
+default ``<checkout>/.cache/factors``. Total size is capped
 (LRU by mtime; ``FLOWCONTROL_TPU_FACTOR_CACHE_GB``, default 20): entries
 at production scale run to GBs each, and an uncapped cache fills a disk
 in a week of mesh experiments.
@@ -30,11 +30,10 @@ logger = logging.getLogger(__name__)
 
 
 def cache_dir() -> Path | None:
+    from flowcontrol_tpu.config import CHECKOUT
+
     d = os.environ.get(
-        "FLOWCONTROL_TPU_FACTOR_CACHE",
-        os.path.join(
-            os.path.expanduser("~"), ".cache", "flowcontrol_tpu", "factors"
-        ),
+        "FLOWCONTROL_TPU_FACTOR_CACHE", str(CHECKOUT / ".cache" / "factors")
     )
     if not d or d.lower() == "off":
         return None

@@ -1,11 +1,11 @@
 """Matrix-free preconditioned Krylov solvers for the saddle-point NS systems.
 
-The TPU replacement for sparse direct factorization at mesh sizes where a
-dense factor no longer fits HBM (ref solver: MUMPS LU,
+A matrix-free alternative to direct factorization at mesh sizes where a
+dense factor no longer fits device memory (ref solver: MUMPS LU,
 src/flowcontrol/flowsolver.py:812-814). Design:
 
 - The operator is applied matrix-free: gather → per-element 15x15 matvec
-  (MXU) → segment-sum scatter, with Dirichlet rows/cols masked to identity.
+  → segment-sum scatter, with Dirichlet rows/cols masked to identity.
 - Preconditioner: SIMPLE-type block factorization
       z_u = F̂⁻¹ r_u
       z_p = Ŝ⁻¹ (D z_u - r_p)
@@ -13,9 +13,8 @@ src/flowcontrol/flowsolver.py:812-814). Design:
   with F̂⁻¹ = damped-Jacobi sweeps on the velocity block and
   Ŝ = D diag(F)⁻¹ G inverted EXACTLY as a precomputed dense matrix — the
   pressure space is P1 (~nv dofs), small enough that its dense inverse lives
-  comfortably in HBM and applies as one MXU matmul. This is the
-  TPU-structural trick: the troublesome Schur complement becomes a dense
-  GEMM.
+  comfortably in device memory and applies as one matmul: the
+  troublesome Schur complement becomes a dense GEMM.
 - FGMRES(m) with a fixed iteration budget (static shapes for XLA) and
   warm starts from the previous time step.
 
@@ -37,7 +36,7 @@ class MatFreeOperator:
     """BC-masked matrix-free operator from element tensors (jit-able pytree).
 
     Uses gather-table assembly (scatter transposed into padded gathers) —
-    required for fast TPU compilation inside scan loops.
+    no scatter-add inside scan loops.
     """
 
     def __init__(self, a_e, cell_dofs, free_mask, n_dofs: int, table=None):

@@ -1,6 +1,6 @@
 """Two-level substructuring with a block-TRIDIAGONAL interface Schur
-complement: the TPU direct solver for production meshes past one dense
-factor's HBM reach — including the reference's stiffest flagship, the
+complement: a device direct solver for production meshes past one dense
+factor's reach — including the reference's stiffest flagship, the
 235k-dof stock cavity at Re=7500/dt=4e-4, which the reference hands to
 MUMPS without ceremony (ref: src/flowcontrol/flowsolver.py:812-814,
 src/examples/cavity/cavityflowsolver.py:254-268).
@@ -21,13 +21,13 @@ O(k * cut^2) memory instead of the dense O((k*cut)^2) that sizes out at
            x_C  = S^-1 r_C                    (block-tridiagonal sweep)
            x_d  = z_d - A_dd^-1 (A_IC x_C)    (k block applies)
 
-TPU-first choices:
-- Strips are sized so interior blocks stay UNDER XLA's LU custom-call VMEM
-  ceiling (~8k dofs): each block gets a PIVOTED f32 factorization via
+Design choices:
+- Strips are sized so interior blocks stay small (~8k dofs): each block
+  gets a PIVOTED f32 factorization via
   ``jnp.linalg.inv`` — no f64 emulation, no no-pivot accuracy cliff.
 - Each block apply is ONE dense matmul against the stored explicit inverse
   (half the flops of a masked trisolve, no sequential block loop, the
-  layout the MXU was built for). A Newton-Schulz probe/polish guards
+  matmul-shaped). A Newton-Schulz probe/polish guards
   inverse quality per block.
 - Couplings A_CI / A_IC are applied as padded ELL gathers (O(nnz) memory
   and bytes) — NOT stored dense; at 235k dofs dense coupling blocks alone
@@ -223,7 +223,7 @@ class TridiagSubstructuredLU:
     solve parameters in ``static()``.
     """
 
-    #: keep interior blocks under XLA's LU custom-call VMEM ceiling
+    #: keep interior blocks small enough for a pivoted dense inverse
     BLOCK_MAX_N = 7500
 
     def __init__(self, a_csr, coords: np.ndarray, n_blocks: int | None = None,
@@ -514,7 +514,7 @@ class TridiagSubstructuredLU:
                               dtype=jnp.float32, chunk: int = 4):
         """Pivoted inverse of every (padded) interior block on device
         (``dtype``; f32 uses XLA's pivoted LU custom call — blocks are sized
-        under its VMEM ceiling), transposed for right-multiplication;
+        small), transposed for right-multiplication;
         probe-verified, with one Newton-Schulz polish if a probe exceeds
         ``probe_tol``."""
         np_dt = np.dtype(jnp.dtype(dtype).name)

@@ -33,7 +33,7 @@ from flowcontrol_tpu.utils.linalg import (  # noqa: F401
     get_frequency_response_mpi,
     get_frequency_response_parallel,
     get_frequency_response_sequential,
-    get_frequency_response_tpu,
+    get_frequency_response_device,
     get_mat_vp_shift_invert,
     get_mat_vp_slepc,
     sparse_to_coo_triplets,

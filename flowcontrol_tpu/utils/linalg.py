@@ -5,12 +5,13 @@ Port of the reference linear-algebra layer (ref: src/utils/linalg.py):
 - generalized eigenproblem A x = λ E x via shift-invert
   (ref: linalg.py:52-129, SLEPc Krylov-Schur + MUMPS). Here: a host path
   (scipy ARPACK + splu — the right tool for one-time sparse analysis) and a
-  TPU path (shift-invert Arnoldi in JAX with a dense complex factorization,
-  for problems that fit HBM). JAX has complex dtypes, so no real 2n×2n
-  embedding (ref: linalg.py:214,400-417) is needed on the TPU path.
+  device path (shift-invert Arnoldi in JAX with a dense complex
+  factorization, for problems that fit device memory). JAX has complex
+  dtypes, so no real 2n×2n embedding (ref: linalg.py:214,400-417) is
+  needed on the device path.
 - frequency response H(jω) = C (jωE - A)^{-1} B
   (ref: linalg.py:192-328, three variants: sequential / joblib / MPI).
-  Here: host sequential and TPU-vmapped-over-ω dense complex solves —
+  Here: host sequential and device-vmapped-over-ω dense complex solves —
   the embarrassing ω-parallelism of the reference's joblib/MPI variants
   maps to one batched solve.
 """
@@ -57,7 +58,7 @@ def get_mat_vp_shift_invert(
     return vals
 
 
-def eig_arnoldi_dense_tpu(
+def eig_arnoldi_dense_device(
     a_dense,
     e_dense,
     n: int = 10,
@@ -65,7 +66,7 @@ def eig_arnoldi_dense_tpu(
     n_krylov: int = 60,
     dtype=np.complex64,
 ):
-    """TPU shift-invert Arnoldi with a dense complex factorization.
+    """Device shift-invert Arnoldi with a dense complex factorization.
 
     For operator sizes that fit HBM as a dense complex matrix. The inner
     solve (A - σE)⁻¹ E v becomes an LU back-substitution; Arnoldi runs in
@@ -147,8 +148,8 @@ def get_frequency_response(a_csr, b, c, q_csr, ww, d=None, verbose=False):
     return h
 
 
-def get_frequency_response_tpu(a_dense, b, c, q_dense, ww, dtype=np.complex64):
-    """Batched TPU frequency response: vmapped dense complex solves over ω.
+def get_frequency_response_device(a_dense, b, c, q_dense, ww, dtype=np.complex64):
+    """Batched device frequency response: vmapped dense complex solves over ω.
 
     The reference parallelizes over frequencies with joblib processes or MPI
     (ref: linalg.py:235-328); here the whole sweep is ONE batched XLA solve.
@@ -203,7 +204,7 @@ def get_frequency_response_sharded(a_dense, b, c, q_dense, ww,
                                    dtype=np.complex64, axis="omega"):
     """Device-sharded frequency sweep: ω split across a jax.sharding.Mesh.
 
-    The TPU-native counterpart of the reference's MPI/MUMPS-distributed sweep
+    The device-mesh counterpart of the reference's MPI/MUMPS-distributed sweep
     (ref: linalg.py:272-328): each device solves its ω shard's dense complex
     systems; no communication is needed (embarrassingly parallel).
     """
@@ -248,7 +249,7 @@ def get_frequency_response_sharded(a_dense, b, c, q_dense, ww,
 #: sequential host solves (ref: get_frequency_response_sequential)
 get_frequency_response_sequential = get_frequency_response
 #: the joblib-process sweep maps onto one batched on-device sweep
-get_frequency_response_parallel = get_frequency_response_tpu
+get_frequency_response_parallel = get_frequency_response_device
 #: the MPI/MUMPS-distributed sweep maps onto the device-sharded sweep
 get_frequency_response_mpi = get_frequency_response_sharded
 #: legacy SLEPc name — backed by ARPACK shift-invert here (no SLEPc needed)
@@ -262,7 +263,7 @@ def eigenproblem_slepc(a, e=None, n: int = 10, sigma: complex = 0.0,
 
     The reference needs a separate complex-build slepc4py environment for
     this; here complex shift-invert is native (ARPACK host path — see
-    ``eig_arnoldi_dense_tpu`` for the on-device variant)."""
+    ``eig_arnoldi_dense_device`` for the on-device variant)."""
     a = sp.csr_matrix(a)
     e = sp.identity(a.shape[0], format="csr") if e is None else sp.csr_matrix(e)
     return get_mat_vp_shift_invert(a, e, n=n, sigma=sigma,

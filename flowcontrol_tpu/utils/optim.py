@@ -2,18 +2,18 @@
 
 Behavioral port of ref: src/utils/optim.py. The reference's MPI master-worker
 protocol (rank-0 optimizer + all-rank collective cost evaluation + stop-flag
-broadcast, ref: optim.py:71-107) is replaced by the TPU-native pattern:
+broadcast, ref: optim.py:71-107) is replaced by a single-program pattern:
 ``batch_evaluate`` runs a whole candidate population through ONE vmapped
 closed-loop rollout — the single-program answer to master-worker MPI.
 """
 
 from __future__ import annotations
 
+import csv
 from pathlib import Path
 from typing import Callable
 
 import numpy as np
-import pandas as pd
 
 
 def fun_array(x: np.ndarray, fun: Callable[..., float], **kwargs) -> np.ndarray:
@@ -73,10 +73,12 @@ def write_results(path, x: np.ndarray, J: np.ndarray, columns=None) -> None:
     x = np.atleast_2d(np.asarray(x))
     J = np.asarray(J).reshape(-1)
     cols = columns or [f"x{i + 1}" for i in range(x.shape[1])]
-    df = pd.DataFrame(x, columns=cols)
-    df["J"] = J
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    df.to_csv(path, index=False)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(list(cols) + ["J"])
+        w.writerows([*map(repr, map(float, xi)), repr(float(j))]
+                    for xi, j in zip(x, J))
 
 
 def write_optim_csv(path, x, J, diverged=False, append=True) -> None:
@@ -87,11 +89,16 @@ def write_optim_csv(path, x, J, diverged=False, append=True) -> None:
     row = {f"x{i + 1}": v for i, v in enumerate(x)}
     row["J"] = np.nan if diverged else float(J)
     row["diverged"] = bool(diverged)
-    df = pd.DataFrame([row])
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     header = not (append and path.exists())
-    df.to_csv(path, mode="a" if append else "w", header=header, index=False)
+    with open(path, "a" if append else "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(row))
+        if header:
+            w.writeheader()
+        # NaN as an empty field, as pandas writes it
+        w.writerow({k: "" if isinstance(v, float) and np.isnan(v) else v
+                    for k, v in row.items()})
 
 
 # ── FlowSolver cost evaluation (ref: optim.py:231-288) ───────────────────────
@@ -105,10 +112,10 @@ def compute_signal_cost(signal, Tnorm: float, criterion: str,
             f"Unknown criterion {criterion!r}: expected 'integral' or 'terminal'."
         )
     scaling = scaling or (lambda v: v)
-    sig = pd.Series(np.asarray(signal).reshape(-1))
+    sig = np.asarray(signal).reshape(-1)
     if criterion == "integral":
         return float(np.sum(scaling(sig)) * Tnorm)
-    return float(scaling(sig.iloc[-1]))
+    return float(scaling(sig[-1]))
 
 
 def compute_control_cost(u_ctrl, Tnorm: float) -> float:

@@ -6,7 +6,7 @@ derivative-free ('dfo' via blackbox_opt) and Bayesian ('bo' via SMT)
 backends — both gated behind imports exactly like the reference (which
 ``pytest.importorskip``s them, ref: tests/test_optim_algs.py:11).
 
-Adds a 'cma-lite' population option for the TPU batched-rollout path:
+Adds a 'cma-lite' population option for the batched-rollout path:
 populations evaluated via vmapped closed-loop rollouts.
 """
 
@@ -222,7 +222,7 @@ def _minimize_bo(costfun: Callable, x0, options: dict):
 def _minimize_population(costfun, x0, options, batch_costfun=None):
     """Simple (mu, lambda) evolution loop evaluating whole populations.
 
-    Designed for the TPU path: pass ``batch_costfun(X (B, dim)) -> (B,)``
+    Designed for the batched device path: pass ``batch_costfun(X (B, dim)) -> (B,)``
     built on a vmapped closed-loop rollout; each generation is ONE device
     program (replaces the reference's MPI master-worker loop)."""
     rng = np.random.default_rng(options["seed"])

@@ -2,7 +2,7 @@
 
 The reference measures wall time per step into the timeseries `runtime`
 column and summarizes with utils.fem.summarize_timings (ref: SURVEY §5.1);
-both exist here. This module adds the TPU-native layer: XLA profile traces.
+both exist here. This module adds the device layer: XLA profile traces.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ LCO sampling, flat-spectrum multisine excitation with crest-factor
 optimization, M×P realization tiling, a streaming per-sample generator, and
 single-line JSON list encoding helpers.
 
-TPU-native extra: ``multisine_batch`` produces a (M, N·P) array directly
+Device-side extra: ``multisine_batch`` produces a (M, N·P) array directly
 usable as a vmapped excitation bank for batched system-ID rollouts.
 """
 

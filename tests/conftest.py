@@ -2,8 +2,10 @@
 
 Mirrors the reference's conftest strategy (ref: tests/conftest.py — tiny
 UnitSquareMesh fixtures, determinism pinning). JAX is forced onto an
-8-virtual-device CPU platform so sharding tests run without TPU hardware,
-and x64 is enabled so regression values are solver-exact.
+8-virtual-device CPU platform so sharding tests run without a multi-GPU
+host, and x64 is enabled so regression values are solver-exact. The
+``gpu``-marked tests run on the card from ``chip_smoke.py``, which sets
+FLOWCONTROL_TESTS_ON_GPU=1 so that the CPU pin is skipped.
 """
 
 import os
@@ -17,7 +19,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+if os.environ.get("FLOWCONTROL_TESTS_ON_GPU") != "1":
+    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import pytest

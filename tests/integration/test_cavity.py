@@ -143,9 +143,11 @@ def test_cavity_gmres_smoke_fast(tmp_path):
 
 
 def test_cavity_dense_f32_production_path_fast(coarse_cavity_mesh, cavity_base, tmp_path):
-    """The TPU production configuration (dense_lu factors + f32 + iterative
-    refinement) agrees with the validation path (host_lu f64) — the fast
-    tier must exercise what BENCH runs (VERDICT r1 weak #2)."""
+    """The GPU production configuration (dense_lu factors + f32, with the
+    mixed-precision refinement the factor probe asks for) agrees with the
+    validation path (host_lu f64) — the fast tier must exercise what the
+    card runs. At 30k dofs the policy puts this mesh in the multifrontal
+    regime."""
     u0, p0 = cavity_base
 
     def run(backend, precision):

@@ -246,7 +246,7 @@ def test_cylinder_legacy_param_restart(coarse_cylinder_mesh, base_flow, tmp_path
 
 
 def test_cylinder_dense_f32_production_path_fast(coarse_cylinder_mesh, base_flow, tmp_path):
-    """dense_lu + f32 + refinement (the BENCH/TPU configuration) vs the
+    """dense_lu + f32 + refinement (the GPU production configuration) vs the
     host_lu f64 validation path on a closed-loop-style actuated run."""
     u0, p0, *_ = base_flow
 

@@ -227,15 +227,13 @@ def test_stock_cylinder_unstable_eigenvalue(stock_base_flow):
 
 
 @pytest.mark.heavy
-def test_stock_cavity_tpu_path_parity(stock_cavity_base_flow, tmp_path):
+def test_stock_cavity_device_path_parity(stock_cavity_base_flow, tmp_path):
     """The production accelerator path — dense_lu/f32, which at 235k dofs
     dispatches to the nested-dissection batched multifrontal solver
     (solvers/multifrontal.py) — matches host_lu/f64 over 5 steps on the
     reference's stock coarse cavity mesh (the flow its MUMPS handles
-    trivially, ref: src/flowcontrol/flowsolver.py:812-814).
-
-    Measured on TPU: 10-step y rel err ~3e-5, field rel err ~2e-4 — the
-    f32-rounded-factor class, far inside the 1e-4/1e-3 gates here."""
+    trivially, ref: src/flowcontrol/flowsolver.py:812-814). The gates
+    (1e-4 on y, 1e-3 on the field) are the f32-rounded-factor class."""
     src = stock_cavity_base_flow
     from flowcontrol_tpu.models.cavity import CavityFlowSolver
 
@@ -260,14 +258,13 @@ def test_stock_cavity_tpu_path_parity(stock_cavity_base_flow, tmp_path):
 
 
 @pytest.mark.heavy
-def test_stock_cylinder_closed_loop_tpu_path(stock_base_flow):
+def test_stock_cylinder_closed_loop_device_path(stock_base_flow):
     """The reference's pinned closed-loop constants (Kopt_reduced13.mat,
     10 steps) reproduced through the PRODUCTION accelerator path —
     dense_lu/f32 (multifrontal/substructured factors) — at rtol 1e-3.
     The f64 twin of this test pins the same constants at the reference's
-    own 1e-4; measured TPU-path closed-loop y error is ~3.4e-5
-    (docs/tpu-design.md), so 1e-3 has ~30x margin while still catching
-    any factor-accuracy regression on the path BENCH actually runs."""
+    own 1e-4; 1e-3 leaves margin for f32 factor rounding while still
+    catching any factor-accuracy regression on the production path."""
     from flowcontrol_tpu.core.controller import Controller
 
     u0, p0, path_out = stock_base_flow
@@ -275,7 +272,7 @@ def test_stock_cylinder_closed_loop_tpu_path(stock_base_flow):
     def make32(tstart=0.0):
         return CylinderFlowSolver.make_default(
             Re=100, meshpath=O1_MESH, num_steps=10, save_every=5,
-            Tstart=tstart, path_out=path_out / "tpu_path", verbose=0,
+            Tstart=tstart, path_out=path_out / "device_path", verbose=0,
             solver_backend="dense_lu", precision="f32",
         )
 
@@ -322,12 +319,12 @@ def test_stock_cavity_closed_loop_rejection(tmp_path):
     dofs: the sampled-data LQG synthesized on the modal ROM of the 4
     documented unstable pairs (max growth rate +0.889,
     ref: compute_eigenvalues.py:53-57) must end with less perturbation
-    energy than the open-loop run. PLANT-VALIDATED on TPU (round 5):
-    open grows 17.15x (theory e^(2*0.888*1.6)=17.1), closed ends at
-    0.637x the open energy with a bounded transient.
+    energy than the open-loop run: open grows 17.15x (theory
+    e^(2*0.888*1.6)=17.1), closed ends at 0.637x the open energy with a
+    bounded transient.
 
-    Wall-time note: 2 x 4000 235k-dof steps is ~3 min of chip time on a
-    TPU and hours on one CPU core; FC_REJECTION_STEPS overrides the
+    Wall-time note: 2 x 4000 235k-dof steps is minutes on an accelerator
+    and hours on one CPU core; FC_REJECTION_STEPS overrides the
     horizon for CPU sanity runs (the energy assertion is only certified
     at the calibrated 4000)."""
     import os

@@ -154,7 +154,7 @@ def stock_pinball_base_flow(tmp_path_factory):
 
 
 @pytest.mark.heavy
-def test_stock_pinball_tpu_path_parity(stock_pinball_base_flow, tmp_path):
+def test_stock_pinball_device_path_parity(stock_pinball_base_flow, tmp_path):
     """Pinball stock regression constants through the production
     dense_lu/f32 (multifrontal) path, plus agreement with host_lu/f64
     (ref constants: tests/integration/test_pinball.py:59-65)."""
@@ -191,7 +191,7 @@ def test_stock_pinball_tpu_path_parity(stock_pinball_base_flow, tmp_path):
 
 
 @pytest.mark.heavy
-def test_stock_lidcavity_tpu_path_parity(tmp_path):
+def test_stock_lidcavity_device_path_parity(tmp_path):
     """Lid-cavity stock regression constants through the production
     dense_lu/f32 path, plus agreement with host_lu/f64
     (ref constants: tests/integration/test_lidcavity.py:47-54)."""
@@ -295,7 +295,7 @@ def test_stock_pinball_mimo_feedback(stock_pinball_base_flow, tmp_path):
 @pytest.mark.xfail(
     reason="unmodeled-mode spillover: the ROM-certified sampled-data LQG "
     "(closed/open 0.028 at N=8000 on the 18-state Re=30 ROM) destabilizes "
-    "the FULL 302k plant — measured round 5 on TPU, the closed loop "
+    "the FULL 302k plant — the closed loop "
     "diverges within the horizon while the open loop grows x13. The "
     "pinball's unstable modes are weakly controllable from the rotation "
     "actuators, so loop gains large enough to regulate them excite the "
@@ -325,7 +325,7 @@ def test_stock_pinball_mimo_rejection(re, n_steps, amp, tmp_path):
     BASELINE config #4 regime (multiple unstable modes: the
     symmetry-breaking pitchfork +0.047 and two shedding pairs).
 
-    Wall-time note: 2 x n_steps 302k-dof steps is minutes on a TPU chip
+    Wall-time note: 2 x n_steps 302k-dof steps is minutes on a GPU
     and hours on one CPU core — on CPU run with a reduced-step sanity
     horizon only via FC_REJECTION_STEPS (the energy assertion is only
     certified at the calibrated horizon).

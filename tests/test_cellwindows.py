@@ -136,3 +136,42 @@ def test_stepper_windowed_nl_trajectory(lid, tmp_path, variant):
     )
     assert np.allclose(x1, x2, atol=1e-10)
     assert np.allclose(y1, y2, atol=1e-12)
+
+
+def onehot_pick_case(dtype=np.float32):
+    """The windowed N(u)'s one-hot pick on real windows of a small mesh,
+    jitted, next to the same values gathered by index: (got, want)."""
+    import jax
+
+    from flowcontrol_tpu.fem.assembly import CellGeometry
+    from flowcontrol_tpu.mesh.dofmap import TaylorHoodSpace
+    from flowcontrol_tpu.mesh.generation import unit_square_mesh
+    from flowcontrol_tpu.ops.cellwindows import (
+        _window_rows,
+        onehot_mask,
+        onehot_pick,
+    )
+
+    space = TaylorHoodSpace.build(unit_square_mesh(12, 12))
+    geom = CellGeometry(space)
+    tree, static = build_cell_windows(
+        space.cell_vel_nodes, space.n_vnodes,
+        {"wq": geom.wq, "dphi2": geom.dphi2, "phi2": geom.phi2},
+        dtype=dtype,
+    )
+    rng = np.random.default_rng(3)
+    u_nodes = rng.standard_normal((space.n_vnodes, 2)).astype(dtype)
+    uwin = np.asarray(_window_rows(tree, static, jnp.asarray(u_nodes)))
+    rel = np.asarray(tree["rel"])
+    got = jax.jit(lambda r, u: onehot_pick(onehot_mask(r, static["w"], u.dtype),
+                                           u))(rel, uwin)
+    want = np.take_along_axis(uwin, rel[..., None], axis=1)
+    return np.asarray(got), want
+
+
+def test_onehot_pick_exact_f32():
+    """The one-hot contraction reproduces the gathered f32 values bit for
+    bit (an exact selection at the pinned precision)."""
+    got, want = onehot_pick_case(np.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

@@ -119,7 +119,7 @@ def test_eigenproblem_slepc_standard_and_generalized():
 
 def test_frequency_response_reference_names():
     assert flu.get_frequency_response_sequential is flu.get_frequency_response
-    assert flu.get_frequency_response_parallel is flu.get_frequency_response_tpu
+    assert flu.get_frequency_response_parallel is flu.get_frequency_response_device
     assert flu.get_mat_vp_slepc is flu.get_mat_vp_shift_invert
     a = sp.csr_matrix(np.array([[-1.0, 0.0], [0.0, -2.0]]))
     q = sp.identity(2, format="csr")

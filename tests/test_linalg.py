@@ -6,10 +6,10 @@ import scipy.sparse as sp
 
 from flowcontrol_tpu.utils.linalg import (
     dense_to_sparse,
-    eig_arnoldi_dense_tpu,
+    eig_arnoldi_dense_device,
     get_field_response,
     get_frequency_response,
-    get_frequency_response_tpu,
+    get_frequency_response_device,
     get_mat_vp_shift_invert,
 )
 
@@ -46,7 +46,7 @@ def test_frequency_response_mimo_shapes():
     assert np.allclose(h[0], hd)
 
 
-def test_frequency_response_tpu_matches_host():
+def test_frequency_response_device_matches_host():
     n = 8
     rng = np.random.default_rng(1)
     a_d = -2 * np.eye(n) + 0.2 * rng.standard_normal((n, n))
@@ -55,8 +55,8 @@ def test_frequency_response_tpu_matches_host():
     q = np.eye(n)
     ww = np.array([0.2, 1.0, 3.0])
     h_host = get_frequency_response(sp.csr_matrix(a_d), b, c, sp.csr_matrix(q), ww)
-    h_tpu = get_frequency_response_tpu(a_d, b, c, q, ww, dtype=np.complex64)
-    assert np.allclose(h_tpu, h_host, rtol=2e-4, atol=1e-6)
+    h_dev = get_frequency_response_device(a_d, b, c, q, ww, dtype=np.complex64)
+    assert np.allclose(h_dev, h_host, rtol=2e-4, atol=1e-6)
 
 
 def test_field_response():
@@ -83,7 +83,7 @@ def test_shift_invert_eig_generalized():
         assert np.abs(r).max() < 1e-8
 
 
-def test_arnoldi_dense_tpu_matches_host():
+def test_arnoldi_dense_device_matches_host():
     rng = np.random.default_rng(2)
     n = 30
     a_d = -np.diag(np.linspace(0.5, 5, n)) + 0.1 * rng.standard_normal((n, n))
@@ -93,9 +93,9 @@ def test_arnoldi_dense_tpu_matches_host():
         sp.csr_matrix(a_d), sp.csr_matrix(e_d), n=3, sigma=0.3,
         return_vectors=False,
     )
-    vals_tpu, _ = eig_arnoldi_dense_tpu(a_d, e_d, n=3, sigma=0.3, n_krylov=25,
+    vals_dev, _ = eig_arnoldi_dense_device(a_d, e_d, n=3, sigma=0.3, n_krylov=25,
                                         dtype=np.complex64)
-    assert abs(vals_tpu[0] - vals_host[0]) < 1e-2
+    assert abs(vals_dev[0] - vals_host[0]) < 1e-2
 
 
 def test_dense_to_sparse():

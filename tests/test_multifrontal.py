@@ -133,7 +133,13 @@ def test_stepper_multifrontal_backend_matches_host_lu(tmp_path, monkeypatch,
     from flowcontrol_tpu.models.lidcavity import LidCavityFlowSolver
 
     monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path))
-    monkeypatch.setenv("FLOWCONTROL_TPU_HBM_GB", "0.002")
+    from flowcontrol_tpu import config
+
+    # a 2 MB device and a 300-dof dense regime push the small mesh past
+    # the single-factor regime
+    monkeypatch.setattr(config, "device_hbm_budget_bytes",
+                        lambda device=None: 2_000_000)
+    monkeypatch.setattr(config, "DENSE_MAX_DOFS", 300)
     monkeypatch.setattr(Stepper, "LAPACK_LU_MAX_N", 300)
 
     def run(backend, precision):
@@ -239,36 +245,10 @@ def test_dp_repack_matches_bucket_and_shrinks_stages(bdf2_system, tmp_path,
     assert size(mf_d) <= 1.1 * size(mf_b)
 
 
-def test_einsum_pallas_matches_xla(bdf2_system, tmp_path, monkeypatch):
-    """FC_MF_EINSUM=pallas swaps the per-stage batched matvecs for the
-    hand-scheduled streaming kernel (ops/pallas_mf_matvec.py) — the
-    single-RHS solve must agree with the XLA-einsum solve to reduction
-    order. Interpret mode off-TPU. Guards the on-chip A/B knob."""
-    from flowcontrol_tpu.solvers.multifrontal import multifrontal_solve
-
-    monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path))
-    a_bc, coords = bdf2_system
-    mf = MultifrontalLU(a_bc, coords, leaf_max=700, dtype=jax.numpy.float32)
-    rng = np.random.default_rng(6)
-    b = rng.standard_normal(a_bc.shape[0]).astype(np.float32)
-    st = mf.static()
-    x_xla = np.asarray(multifrontal_solve(mf.tree(), b, **st))
-    st["einsum"] = "pallas"
-    x_pl = np.asarray(multifrontal_solve(mf.tree(), b, **st))
-    # f32 reduction-order noise amplified through the triangular sweeps:
-    # compare norm-wise, like the splu-truth tests above
-    rel = np.linalg.norm(x_pl - x_xla) / np.linalg.norm(x_xla)
-    assert rel < 2e-5, rel
-    # batched rhs silently keeps the einsum path (amortized factor read)
-    xb = np.asarray(multifrontal_solve(
-        mf.tree(), np.stack([b, b]), **st))
-    np.testing.assert_allclose(xb[0], xb[1], rtol=0, atol=0)
-
-
 def test_solve_panel_lane0_matches_single(bdf2_system, tmp_path, monkeypatch):
     """The stepper's solve_panel trick (broadcast the single RHS to an
-    N-wide panel, keep lane 0 — measured 35% faster on v5e because (1,n)
-    vector ops waste the sublane dim) must be numerically indistinguishable
+    N-wide panel, keep lane 0 — an A/B knob) must be numerically
+    indistinguishable
     from the single-RHS solve: all lanes bitwise-equal, lane 0 within
     reduction-order noise of the unbatched solve."""
     from flowcontrol_tpu.solvers.multifrontal import multifrontal_solve
@@ -298,7 +278,13 @@ def test_stepper_solve_panel_trajectory(tmp_path, monkeypatch):
     from flowcontrol_tpu.models.lidcavity import LidCavityFlowSolver
 
     monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path))
-    monkeypatch.setenv("FLOWCONTROL_TPU_HBM_GB", "0.002")
+    from flowcontrol_tpu import config
+
+    # a 2 MB device and a 300-dof dense regime push the small mesh past
+    # the single-factor regime
+    monkeypatch.setattr(config, "device_hbm_budget_bytes",
+                        lambda device=None: 2_000_000)
+    monkeypatch.setattr(config, "DENSE_MAX_DOFS", 300)
     monkeypatch.setattr(Stepper, "LAPACK_LU_MAX_N", 300)
 
     def run(panel):
@@ -333,7 +319,13 @@ def test_stepper_hot_order_matches_host_lu(tmp_path, monkeypatch):
     from flowcontrol_tpu.models.lidcavity import LidCavityFlowSolver
 
     monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path))
-    monkeypatch.setenv("FLOWCONTROL_TPU_HBM_GB", "0.002")
+    from flowcontrol_tpu import config
+
+    # a 2 MB device and a 300-dof dense regime push the small mesh past
+    # the single-factor regime
+    monkeypatch.setattr(config, "device_hbm_budget_bytes",
+                        lambda device=None: 2_000_000)
+    monkeypatch.setattr(config, "DENSE_MAX_DOFS", 300)
     monkeypatch.setattr(Stepper, "LAPACK_LU_MAX_N", 300)
 
     def run(backend, opts=None):

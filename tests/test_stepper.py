@@ -1,6 +1,6 @@
 """Stepper engine: scheme/backend consistency, batching, fused closed loop.
 
-Validates that the jitted TPU step math reproduces the reference
+Validates that the jitted device step math reproduces the reference
 time-stepping semantics (ref: src/flowcontrol/flowsolver.py:703-799 and
 nsforms.py schemes) across solver backends and batching modes.
 """

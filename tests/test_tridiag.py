@@ -122,7 +122,13 @@ def test_stepper_tridiag_backend_matches_host_lu(tmp_path, monkeypatch,
     from flowcontrol_tpu.models.lidcavity import LidCavityFlowSolver
 
     monkeypatch.setenv("FLOWCONTROL_TPU_FACTOR_CACHE", str(tmp_path))
-    monkeypatch.setenv("FLOWCONTROL_TPU_HBM_GB", "0.002")
+    from flowcontrol_tpu import config
+
+    # a 2 MB device and a 300-dof dense regime push the small mesh past
+    # the single-factor regime
+    monkeypatch.setattr(config, "device_hbm_budget_bytes",
+                        lambda device=None: 2_000_000)
+    monkeypatch.setattr(config, "DENSE_MAX_DOFS", 300)
     monkeypatch.setattr(Stepper, "LAPACK_LU_MAX_N", 300)
 
     def run(backend, precision, sub):

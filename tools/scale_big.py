@@ -1,14 +1,14 @@
 """Past the reference's biggest case: a >=500k-dof cylinder through the
-production multifrontal path on one chip.
+production multifrontal path on one GPU.
 
 The reference's largest shipped artifact is the 235k-dof stock cavity
 (its MUMPS flagship, ref: src/flowcontrol/flowsolver.py:812-814); this
 tool generates a graded cylinder mesh at ~2x that, computes the base
 flow, and runs the dense_lu/f32 (multifrontal) stepper on the
-accelerator — the scaling-axis evidence that the TPU build EXCEEDS the
+GPU — the scaling-axis evidence that the device build exceeds the
 reference rather than matching it (SURVEY §5.7). The sharded solve
 (parallel/mf_sharded.py) makes per-device factor bytes O(total/n_dev)
-where a single chip runs out.
+where a single card runs out.
 
 Usage:
   python tools/scale_big.py sizes          # print candidate mesh sizes
